@@ -65,7 +65,7 @@ def main():
     ax.set_xlabel("matrix size N")
     ax.set_ylabel("mean seconds per instance")
     ax.set_yscale("log")
-    ax.set_title("SVD model runtimes (TPU)")
+    ax.set_title("SVD model runtimes")
     ax.legend()
     ax.grid(True, alpha=0.3)
     fig.tight_layout()

@@ -1,4 +1,4 @@
-"""svdsolver_tpu — a TPU-native dense singular-value-decomposition framework.
+"""svdsolver_tpu — a dense singular-value-decomposition framework in JAX.
 
 Built from scratch in JAX/XLA/Pallas with the full capability ladder of the
 reference CPU/CUDA solver (scrose/SVDSolver):
@@ -11,8 +11,9 @@ reference CPU/CUDA solver (scrose/SVDSolver):
 
 Everything is a pure function over `jax.Array`s with static shapes so that the
 whole pipeline compiles to a single XLA executable; the hot FLOPs (trailing
-matrix updates) land on the MXU as large fused GEMMs, and panel factorizations
-run as Pallas kernels resident in VMEM.
+matrix updates) land in large GEMMs, and the sequential per-lane recurrences
+(bisection, the inverse-iteration solve) run as Pallas Triton kernels on the
+GPU (ops/dispatch.py chooses them; the XLA references run elsewhere).
 """
 
 from svdsolver_tpu.ops.householder import (

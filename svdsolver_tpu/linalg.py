@@ -5,7 +5,7 @@ No reference counterpart (the reference stops at singular values —
 svd_serial.h:368 ``qrd`` is its last pipeline stage); these are the standard
 consumers of an SVD that make the solver usable as a framework.  Everything
 routes through the flagship two-stage pipeline (:func:`svdsolver_tpu.svd` /
-:func:`svdsolver_tpu.svdvals`), so the hot FLOPs land on the MXU.
+:func:`svdsolver_tpu.svdvals`), so the hot FLOPs land in its GEMMs.
 """
 
 import jax.numpy as jnp
@@ -112,8 +112,8 @@ def rsvd(A, k, oversample=8, power_iters=2, key=None):
     sharpen the range capture for slowly decaying spectra; accuracy is the
     usual ``sigma_{k+1}``-dominated randomized bound, so use :func:`svds`
     when exact top-k triplets are required.  Everything except the final
-    (k+p)-sized exact SVD is an MXU GEMM, so this is the fastest path for
-    k << n on one chip and the natural sketch for very large inputs.
+    (k+p)-sized exact SVD is a GEMM, so this is the fastest path for
+    k << n on one device and the natural sketch for very large inputs.
     """
     import jax
 
@@ -173,8 +173,8 @@ def eigh(A, method="tpu2"):
         raise ValueError(f"eigh expects a square symmetric matrix, got {A.shape}")
     if np.iscomplexobj(A):
         # Hermitian: same shift trick via the complex SVD.  Note: the complex
-        # branch returns NUMPY arrays (no complex dtype exists on this TPU
-        # backend) and ignores ``method`` (svd_c has one pipeline).
+        # branch returns NUMPY arrays (the split-complex pipeline's host
+        # interface) and ignores ``method`` (svd_c has one pipeline).
         from svdsolver_tpu.models.complex_svd import svd_c
 
         A = np.asarray(A)

@@ -1,1 +1,1 @@
-"""SVD compute models: the reference's four-implementation ladder, TPU-native."""
+"""SVD compute models: the reference's four-implementation ladder in JAX."""

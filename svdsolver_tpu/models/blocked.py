@@ -3,9 +3,9 @@
 Capability parity with the reference's ``serial::block_brd``
 (svd_serial.h:441-536): panel-wise compact-WY bidiagonal reduction where each
 panel accumulates ``V, Y, X, U`` such that the trailing matrix is updated once
-per panel as ``A <- A - V Y^T - X U^T`` (two large GEMMs -> MXU).
+per panel as ``A <- A - V Y^T - X U^T`` (two large GEMMs).
 
-TPU-first differences from the reference:
+Differences from the reference:
 
 * the reference re-materializes ``A - VY' - XU'`` for the *entire* trailing
   matrix before every panel column (svd_serial.h:566-571) — an O(m n b) cost

@@ -242,13 +242,13 @@ def bidiagonal_svdvals(d, e, max_sweeps=None, chunk_sweeps=None):
       index arithmetic instead of the reference's scan-and-slice;
     * one zero-shift sweep runs on that block per iteration.
 
-    The sweeps run in host-driven CHUNKS of ``chunk_sweeps`` (auto-sized:
-    ~15 s of device time per chunk): this algorithm is O(n) sweeps of O(n)
-    sequential Givens — the honest O(n^2) curve the reference's
-    ``diagonal`` benchmark records — and a single device program running
-    for minutes trips the platform's worker watchdog (observed as
-    "TPU worker process crashed" at n >= 1280).  Under a jit trace the
-    host loop degenerates to one full-length chunk (previous behavior).
+    The sweeps run in host-driven CHUNKS of ``chunk_sweeps`` (auto-sized
+    to a bounded amount of work per chunk): this algorithm is O(n) sweeps
+    of O(n) sequential Givens — the honest O(n^2) curve the reference's
+    ``diagonal`` benchmark records — and one device program of that length
+    cannot be interrupted, while chunks let the host stop as soon as the
+    bidiagonal has converged.  Under a jit trace the host loop degenerates
+    to one full-length chunk.
     """
     n = d.shape[0]
     if n == 1:
@@ -259,8 +259,7 @@ def bidiagonal_svdvals(d, e, max_sweeps=None, chunk_sweeps=None):
 
     tracing = isinstance(d, _core.Tracer) or isinstance(e, _core.Tracer)
     if chunk_sweeps is None:
-        # keep every compiled program far under the ~45 s worker watchdog
-        # at any n (a sweep costs ~1.6e-5 * n s)
+        # bounded work per compiled program: ~1.2e6 / n sweeps of O(n) each
         chunk_sweeps = max(128, min(1024, int(1.2e6) // max(n, 1)))
     thresh = _qr_diag_thresh(d, e)
     if tracing or chunk_sweeps >= max_sweeps:
@@ -286,8 +285,8 @@ def dqds_svdvals(d, e, max_sweeps=None, with_info=False):
     accuracy on graded spectra (validated at condition 1e12: max relative
     error ~4e-13 where the fixed-count bisection's absolute bracket gives
     ~1e-8 on the smallest values).  Like the QR path it is a sequential
-    sweep recurrence — kept for accuracy parity, not speed; the TPU-shaped
-    default remains bisection.
+    sweep recurrence — kept for accuracy parity, not speed; the default
+    remains bisection.
 
     Works on scaled q = d^2, ee = e^2.  Per iteration: hard-zero negligible
     off-diagonals and SPLIT at the bottom-most zero (dlasq2-style — the
@@ -972,13 +971,36 @@ def dqds_svdvals(d, e, max_sweeps=None, with_info=False):
     return sig
 
 
+def bisect_iters(dtype):
+    """Halvings from the Gershgorin bracket down to ~eps * ||B||."""
+    return int(np.ceil(-np.log2(np.finfo(dtype).eps))) + 12
+
+
+def tgk_bisect_inputs(d, e):
+    """Squared TGK off-diagonals and the Gershgorin bound for bisection.
+
+    TGK's off-diagonals interleave d and e: (d1, e1, d2, e2, ..., d_n).
+    Their squares are floored at ``tiny`` (which decouples exact splits
+    safely); the bound is padded by a few ulps so every eigenvalue lies
+    strictly inside [-bound, bound]."""
+    n = d.shape[0]
+    dtype = d.dtype
+    z = jnp.zeros((2 * n - 1,), dtype).at[0::2].set(d).at[1::2].set(e)
+    z2 = jnp.maximum(z * z, jnp.asarray(jnp.finfo(dtype).tiny, dtype))
+    azp = jnp.pad(jnp.abs(z), (1, 1))
+    bound = jnp.max(azp[:-1] + azp[1:]) * (1 + 4 * jnp.finfo(dtype).eps)
+    return z2, bound
+
+
 @functools.partial(jax.jit, static_argnames=("iters",))
 def bisect_svdvals(d, e, iters=None):
     """Singular values of the bidiagonal {d, e} by parallel bisection.
 
-    TPU-native alternative to QR iteration (no reference counterpart — the
+    Parallel alternative to QR iteration (no reference counterpart — the
     reference's ``qrd`` is inherently sequential: ~n rotations per sweep and
-    O(n) sweeps, hopeless at scale on a vector machine).  Here all ``n``
+    O(n) sweeps, hopeless at scale on a wide device).  This is the XLA
+    reference; on CUDA ``ops.dispatch.bisect_svdvals`` runs the Triton
+    kernel of ops/pallas/bisect_triton.py instead.  Here all ``n``
     values are bisected *simultaneously* on the Golub-Kahan tridiagonal
     ``TGK = P [[0, B^T], [B, 0]] P^T`` (zero diagonal, off-diagonals
     interleaving d and e), whose eigenvalues are +/-sigma.  One bisection
@@ -1000,15 +1022,8 @@ def bisect_svdvals(d, e, iters=None):
     if n == 1:
         return jnp.abs(d)
     if iters is None:
-        # enough halvings to reach eps * ||B|| from the Gershgorin bracket
-        iters = int(np.ceil(-np.log2(np.finfo(dtype).eps))) + 12
-    # TGK off-diagonals: (d1, e1, d2, e2, ..., d_n) -> (2n-1,)
-    z = jnp.zeros((2 * n - 1,), dtype).at[0::2].set(d).at[1::2].set(e)
-    tiny = jnp.asarray(jnp.finfo(dtype).tiny, dtype)
-    z2 = jnp.maximum(z * z, tiny)  # tiny decouples exact splits safely
-    az = jnp.abs(z)
-    azp = jnp.pad(az, (1, 1))
-    bound = jnp.max(azp[:-1] + azp[1:]) * (1 + 4 * jnp.finfo(dtype).eps)
+        iters = bisect_iters(dtype)
+    z2, bound = tgk_bisect_inputs(d, e)
 
     def count_sigma_less(lam):
         """#(sigma < lam_j) for each lane j, via TGK Sturm pivot signs."""

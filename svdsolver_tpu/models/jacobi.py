@@ -1,16 +1,17 @@
-"""One-sided block-Jacobi SVD — a TPU-first algorithm family.
+"""One-sided block-Jacobi SVD — an all-GEMM algorithm family.
 
 No reference counterpart (the reference implements bidiagonalization-based
 methods only: svd_serial.h:233 ``brd``, svd_parallel.h:411 ``brd_p1``).
-Added because block Jacobi is the natural *second* SVD algorithm for the
-MXU, with a completely different compute shape from the two-stage pipeline:
+Added because block Jacobi is the natural *second* SVD algorithm for
+matrix units, with a compute shape completely different from the
+two-stage pipeline's:
 
 * Every sweep is a round-robin tournament over column blocks.  Each round
   pairs all blocks into disjoint couples, so every pair's work — a batched
   ``(2b, 2b)`` Gram contraction, a batched rotation solve, and a batched
   ``(n, 2b) @ (2b, 2b)`` column update — runs as ONE big batched GEMM with
   no sequential dependence inside the round.  There is no panel bottleneck
-  and no bulge chase: the whole algorithm is MXU-dense.
+  and no bulge chase: the whole algorithm is GEMM-dense.
 * One-sided Jacobi never forms the full Gram matrix A'A; each rotation is
   computed from a (2b, 2b) Gram of two column blocks and applied to the
   columns directly, which preserves small singular values far better than
@@ -53,11 +54,10 @@ solver runs on whichever of A / A' has the smaller row-norm spread
 (LAPACK's dgejsv applies the same heuristic) — chosen with elementwise
 ``where`` so the whole solve stays jittable.
 
-Measured positioning (v5e, fp32, PERF_NOTES session-9): the two-stage
-pipeline wins wall-clock at every size, single and batched (e.g. 0.096 s
-vs 5.2 s at 2048^2) — use Jacobi when the ACCURACY CLASS matters (graded /
-ill-scaled spectra need relative sigma error) or for the multi-chip
-tournament (parallel/jacobi.py), not for speed on one chip.
+Use Jacobi when the ACCURACY CLASS matters (graded / ill-scaled spectra
+need relative sigma error) or for the multi-device tournament
+(parallel/jacobi.py); its speed against the two-stage pipeline on the GPU
+is not measured yet.
 
 Rank-deficiency note: singular vectors attached to sigma ~= 0 are returned
 as zero columns (W's null columns carry no direction information); the
@@ -122,9 +122,9 @@ def _rotation_params(app, aqq, apq, eps):
     tau = (aqq - app) / denom
     sgn = jnp.where(tau >= 0, 1.0, -1.0).astype(app.dtype)
     # sqrt(1 + tau^2) without forming tau^2: near convergence tau ~ 1/apq
-    # blows past the f32 RANGE (which this TPU's f64 emulation also carries),
-    # so square only a ratio <= 1 and rescale.  |tau| >= 1: sqrt(1+tau^2) =
-    # |tau| * sqrt(1 + tau^-2); inf stays inf -> t = 0, the correct limit.
+    # blows past the f32 RANGE, so square only a ratio <= 1 and rescale.
+    # |tau| >= 1: sqrt(1+tau^2) = |tau| * sqrt(1 + tau^-2); inf stays inf
+    # -> t = 0, the correct limit.
     at = jnp.abs(tau)
     big = at >= 1.0
     r = jnp.where(big, 1.0 / jnp.maximum(at, 1.0), at)  # <= 1, safe to square
@@ -144,8 +144,8 @@ def _local_rotations(G, perms, iperms, prec):
     G_new = J' G J nearly diagonal.  Unlike an eigendecomposition, J is a
     product of rotations and -> I as offdiag(G) -> 0, which is what makes
     the OUTER block iteration converge (see module docstring).  ``prec``
-    must be fp32-accurate on TPU: J is a product of O(w) rotation
-    applications, and bf16 DEFAULT-precision contractions destroy its
+    must be fp32-accurate (HIGHEST, never TF32): J is a product of O(w)
+    rotation applications, and reduced-precision contractions destroy its
     orthogonality (and with it the factorization) within a few sweeps.
     """
     P, w, _ = G.shape
@@ -235,17 +235,8 @@ def _jacobi_round(W, V, perm, iperm, in_perms, in_iperms, b, eps_eff):
 
 
 def _eps_eff(dtype):
-    """Effective machine epsilon of the compute path.
-
-    On TPU the fp64 emulation (float32x2) carries ~2^-47 effective
-    precision (measured coupling floor ~8e-15 on a random 256^2 — see
-    module tests); a pure finfo(f64).eps tolerance would never be reached
-    there.  2^-44 leaves ~8x slack over the measured floor.
-    """
-    eps = float(jnp.finfo(dtype).eps)
-    if jnp.dtype(dtype) == jnp.float64 and jax.default_backend() == "tpu":
-        eps = max(eps, 2.0 ** -44)
-    return eps
+    """Machine epsilon of the compute path: native float32 and float64."""
+    return float(jnp.finfo(dtype).eps)
 
 
 @functools.partial(
@@ -264,8 +255,8 @@ def _svd_jacobi_square(A, b, max_sweeps, tol, eps_eff):
     A = jnp.where(flip, A.T, A)
     # gesvj-style input scaling: Gram entries and the skip/coupling tests
     # form PRODUCTS of squared column norms — unscaled, entries ~1e10
-    # overflow those products to inf in f32 (and in this TPU's f32-range
-    # f64 emulation), silently skipping every rotation.  Scale to
+    # overflow those products to inf in f32, silently skipping every
+    # rotation.  Scale to
     # max|A| ~ 1 (column norms <= sqrt(n), products <= n^2), unscale sigma.
     scale = jnp.max(jnp.abs(A))
     scale = jnp.where(
@@ -308,8 +299,8 @@ def _svd_jacobi_square(A, b, max_sweeps, tol, eps_eff):
         _, _, off, stall, it = state
         # Stop on: tolerance reached, OR two consecutive sweeps at the
         # noise floor of the compute path (which for columns near the dead
-        # floor sits far above any eps-scale tolerance — graded spectra on
-        # TPU-emulated f64).  Further sweeps past the floor only churn
+        # floor sits far above any eps-scale tolerance on graded
+        # spectra).  Further sweeps past the floor only churn
         # noise into the smallest columns.
         return jnp.logical_and(
             it < max_sweeps, jnp.logical_and(off > tol, stall < 2)
@@ -347,11 +338,11 @@ def _finalize(W, V, n, flip, eps_eff):
 def svd_jacobi(A, block=64, max_sweeps=30, tol=None):
     """Full SVD by one-sided block Jacobi: ``A ~= U @ diag(s) @ Vh``.
 
-    TPU-first alternative to the two-stage pipeline (see module docstring):
-    all FLOPs are batched MXU GEMMs, there is no sequential panel or chase,
+    All-GEMM alternative to the two-stage pipeline (see module docstring):
+    all FLOPs are batched GEMMs, there is no sequential panel or chase,
     and sigma on graded/ill-scaled matrices carry ~eps RELATIVE accuracy —
     better than any bidiagonalization-based method.  ``block`` is the
-    column-block width (pair width ``2*block`` — 64 fills an MXU tile pair);
+    column-block width (pair width ``2*block``);
     ``tol`` is the maximum relative cross-block coupling at which a sweep
     declares convergence (default ``sqrt(n) * eps``).
     """
@@ -377,8 +368,8 @@ def svd_jacobi_batch(As, block=16, max_sweeps=30, tol=None):
 
     vmaps the square Jacobi solve — every round's Gram/rotation/update
     batches across both the tournament pairs and the input batch, which
-    keeps the MXU full even for small per-matrix sizes.  All lanes run the
-    same sweep count (the convergence test reduces over the batch).
+    keeps the matrix units full even for small per-matrix sizes.  All lanes
+    run the same sweep count (the convergence test reduces over the batch).
     """
     if As.ndim != 3 or As.shape[1] != As.shape[2]:
         raise ValueError(f"expected (B, n, n), got {As.shape}")
@@ -435,14 +426,11 @@ def svd_jacobi_pre(A, block=16, max_sweeps=30, tol=None):
     gives ``X = Ux diag(s) Vhx``; then ``U = Q1 Ux`` and
     ``Vh = (Q2 Vhx^T)^T P^T`` (a column un-permutation).
 
-    Measured positioning vs the standalone :func:`svd_jacobi` (same
-    accuracy class) is recorded in PERF_NOTES; standalone remains the
-    reference-free path (no QR in front) for rank-revealing edge cases.
-    The whole path (permutation + QRs + Jacobi + assembly) runs as ONE
-    jitted program — eager dispatch on this platform costs seconds per op.
-    ``block`` defaults to 16 (not standalone's 64): the condensed input
-    needs less cross-block mixing, so cheaper local solves win (measured
-    at 1024: b=16 0.42 s / b=32 0.46 / b=64 0.62, same sweep count class).
+    The standalone :func:`svd_jacobi` (same accuracy class) remains the
+    path with no QR in front, for rank-revealing edge cases.  The whole
+    path (permutation + QRs + Jacobi + assembly) runs as ONE jitted
+    program.  ``block`` defaults to 16 (not standalone's 64): the condensed
+    input needs less cross-block mixing, so cheaper local solves suffice.
     """
     m, n = A.shape
     if m < n:

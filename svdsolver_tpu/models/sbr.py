@@ -1,6 +1,6 @@
 """Successive band reduction (SBR): block bulge-chase that narrows an
 upper-band matrix from bandwidth ``b1`` to ``b2`` with rank-``nb`` block
-reflectors whose applies are MXU GEMMs.
+reflectors whose applies are GEMMs.
 
 Why this exists: the scalar bulge chase (models/two_stage.band_to_bidiagonal,
 reference brd_p2 at svd_parallel.h:639) does O(n^2 * b) strictly VECTOR-bound
@@ -20,7 +20,7 @@ window pair (two_stage.make_window_pairs is the ``nb = 1, b2 = 1`` case):
   staircase where row ``t`` ends at window column ``t`` (bandwidth ``b2``
   at the sweep top, bandwidth ``b1`` for chase hops), via a compact-WY LQ
   panel over the ``d + nb``-wide support (``d = b1 - b2``), applied to every
-  window row on the MXU.  This fills a lower-triangular bulge below the
+  window row as a GEMM.  This fills a lower-triangular bulge below the
   diagonal in the next ``d + nb`` rows.
 * left/QR block elimination: the first ``nb`` bulge columns are eliminated
   back to upper form (column ``t`` keeps window rows ``[0, t]``) by the
@@ -61,7 +61,7 @@ def make_sbr_window_pairs(b, c, nb):
         # LQ panel over the first nb rows of the W-wide left strip; row t
         # pivots at column t (staircase).  _panel_qr_step on the transpose
         # factors panel columns with pivot row j and applies the aggregated
-        # compact-WY reflector to the whole strip (MXU GEMMs).
+        # compact-WY reflector to the whole strip (GEMMs).
         R = Wn[:, :W]
         R = _panel_qr_step(R.T, 0, 0, nb).T
         return Wn.at[:, :W].set(R)

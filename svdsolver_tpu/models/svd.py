@@ -15,16 +15,8 @@ from svdsolver_tpu.models.golub_kahan import bidiagonalize_gk
 from svdsolver_tpu.models.blocked import bidiagonalize_blocked
 from svdsolver_tpu.models.two_stage import dense_to_band, band_to_bidiagonal
 from svdsolver_tpu.models.tiled import dense_to_band_tiled
-from svdsolver_tpu.models.diagonalize import (
-    bidiagonal_svdvals,
-    bisect_svdvals,
-    dqds_svdvals,
-)
-
-
-def use_pallas(dtype):
-    """The Pallas device-resident paths need a real TPU backend and fp32."""
-    return jax.default_backend() == "tpu" and jnp.dtype(dtype) == jnp.float32
+from svdsolver_tpu.models.diagonalize import bidiagonal_svdvals, dqds_svdvals
+from svdsolver_tpu.ops import dispatch
 
 METHODS = ("base", "singlecore", "multicore", "tpu1", "tpu2")
 
@@ -45,10 +37,9 @@ def _pad_to_multiple(A, b):
 
 
 def _auto_block(n):
-    """Band/panel width tuning: wider bands shrink the sequential bulge-chase
-    step count (n^2/b steps) and fatten Stage-I GEMMs; measured on v5e at
-    n=3200: b=32 -> 1.96s, b=64 -> 1.19s, b=128 -> 0.78s, b=160 -> 0.70s.
-    128 balances runtime against compile time."""
+    """Band/panel width: wider bands shrink the sequential bulge-chase step
+    count (n^2/b steps) and fatten the Stage-I GEMMs, at the price of more
+    work per chase window and longer compiles."""
     if n >= 1024:
         return 128
     if n >= 256:
@@ -62,9 +53,9 @@ def bidiagonalize(A, method="tpu2", block=None):
     base       : Golub-Kahan, unblocked           (reference `brd`)
     singlecore : blocked one-stage compact-WY     (reference `block_brd`)
     multicore / tpu1 / tpu2 : two-stage band reduction + bulge chase
-                 (reference `brd_p1`+`brd_p2` / `cuda_brd_p1`); on TPU the
-                 three share the XLA/Pallas path — thread fan-out and CUDA
-                 kernel launches both map to compiled device code.
+                 (reference `brd_p1`+`brd_p2` / `cuda_brd_p1`).  multicore
+                 runs the reference's tiled Stage-I schedule; tpu1 and tpu2
+                 are two names for the same panel-sweep path.
 
     ``block=None`` auto-selects the band/panel width by problem size.
     """
@@ -79,43 +70,10 @@ def bidiagonalize(A, method="tpu2", block=None):
         if method == "multicore":
             # the reference's tiled TS-QR schedule (brd_p1, svd_parallel.h)
             Ab = dense_to_band_tiled(Ap, band=block)
-        elif method == "tpu2" and use_pallas(A.dtype):
-            # device-resident panel factorization (the CUDA-2 analogue:
-            # taus/reflectors never leave the chip) + shrinking trailing GEMMs
-            from svdsolver_tpu.ops.pallas.panel_qr import dense_to_band_pallas
-
-            Ab = dense_to_band_pallas(Ap, band=block)
         else:
-            # the panel-sweep schedule of its CUDA drivers (cuda_brd_p1);
-            # per-op XLA dispatch is the analogue of CUDA-1's per-op launches
+            # the panel-sweep schedule of its CUDA drivers (cuda_brd_p1)
             Ab = dense_to_band(Ap, band=block)
-        if method == "tpu2" and use_pallas(A.dtype):
-            # device-resident single-launch chase (the CUDA-2 analogue)
-            from svdsolver_tpu.ops.pallas.band_chase import (
-                band_to_bidiagonal_pallas,
-            )
-            from svdsolver_tpu.ops.pallas.band_chase_stream import (
-                band_to_bidiagonal_pallas_stream,
-                stream_chase_preferred,
-            )
-            from svdsolver_tpu.ops.pallas.band_chase_wave import (
-                band_to_bidiagonal_pallas_wave,
-                wave_chase_preferred,
-            )
-
-            if wave_chase_preferred(Ap.shape[0], block):
-                # past the HBM kernel's row-stride cliff, band in VMEM:
-                # wavefront-batched packed chase (larfg chains amortized
-                # across the pipelined sweep lanes)
-                d, e = band_to_bidiagonal_pallas_wave(Ab, band=block)
-            elif stream_chase_preferred(Ap.shape[0], block):
-                # past the cliff, beyond VMEM residency: streamed packed
-                # chase (two-phase windows)
-                d, e = band_to_bidiagonal_pallas_stream(Ab, band=block)
-            else:
-                d, e = band_to_bidiagonal_pallas(Ab, band=block)
-        else:
-            d, e = band_to_bidiagonal(Ab, band=block)
+        d, e = band_to_bidiagonal(Ab, band=block)
         d, e = d[:n], e[: n - 1]
     else:
         raise ValueError(f"unknown method {method!r}; choose from {METHODS}")
@@ -126,7 +84,7 @@ def svdvals(A, method="tpu2", block=None, diag="bisect"):
     """Singular values of ``A`` (any shape), sorted descending.
 
     End-to-end: bidiagonalize with the chosen model, then diagonalize.
-    ``diag``: 'bisect' (default — TPU-native parallel bisection), 'qr'
+    ``diag``: 'bisect' (default — all values bisected in parallel), 'qr'
     (the reference's implicit-shift QR with deflation, svd_serial.h:368),
     or 'dqds' (Fernando-Parlett differential qd — high relative accuracy
     on graded spectra, with bisection fallback).
@@ -138,7 +96,7 @@ def svdvals(A, method="tpu2", block=None, diag="bisect"):
     """
     import numpy as _np
 
-    if _np.iscomplexobj(A):  # host numpy complex; no complex dtype on TPU
+    if _np.iscomplexobj(A):  # host numpy complex: split (re, im) pipeline
         if method != "tpu2" or diag != "bisect":
             raise ValueError(
                 "complex input supports only method='tpu2', diag='bisect' "
@@ -156,11 +114,7 @@ def svdvals(A, method="tpu2", block=None, diag="bisect"):
         A = jnp.linalg.qr(A, mode="r")[:n, :n]
     B = bidiagonalize(A, method=method, block=block)
     if diag == "bisect":
-        if method == "tpu2" and use_pallas(A.dtype):
-            from svdsolver_tpu.ops.pallas.bisect import bisect_svdvals_pallas
-
-            return bisect_svdvals_pallas(B.d, B.e)[:n]
-        return bisect_svdvals(B.d, B.e)[:n]
+        return dispatch.bisect_svdvals(B.d, B.e)[:n]
     elif diag == "qr":
         return bidiagonal_svdvals(B.d, B.e)[:n]
     elif diag == "dqds":
@@ -182,6 +136,6 @@ def svdvals_batch(As, block=None):
         Ap, _ = _pad_to_multiple(A, block)
         Ab = dense_to_band(Ap, band=block)
         d, e = band_to_bidiagonal(Ab, band=block)
-        return bisect_svdvals(d, e)[:n]
+        return dispatch.bisect_svdvals(d, e)[:n]
 
     return jax.vmap(one)(As)

@@ -7,8 +7,8 @@ Two pieces:
   from parallel bisection, then eigenvectors of the Golub-Kahan tridiagonal
   ``TGK`` by inverse iteration.  The tridiagonal solve (LU with partial
   pivoting, band-2 upper factor) runs *vectorized across all n shift lanes*,
-  the same trick that makes the bisection TPU-shaped: sequential depth is
-  O(2n) per iteration with (n,)-vector arithmetic.
+  the same layout as the bisection: sequential depth is O(2n) per
+  iteration with (n,)-vector arithmetic.
 * :func:`bidiagonalize_blocked_uv` — the one-stage blocked reduction with
   orthogonal-factor accumulation: per panel, ``U <- U (I - V T V^T)`` with
   the compact-WY ``T`` recovered in closed form
@@ -17,13 +17,13 @@ Two pieces:
 Clustered or exactly-multiple singular values: inverse iteration alone would
 return nearly-parallel columns there, so :func:`tgk_vectors` re-orthogonalizes
 within detected tight clusters in TGK space after every iteration — a
-cluster-blocked shifted CholeskyQR (width-unlimited, all MXU/blocked ops;
+cluster-blocked shifted CholeskyQR (width-unlimited, all GEMM/blocked ops;
 with the iteration this is inverse *subspace* iteration per cluster) —
 and finishes with a per-part Newton-Schulz polar polish that removes the
 ~eps*smax/gap cross-talk of the dense bulk AND the -sigma twin
 contamination of close-but-unclustered lanes (whose u/v defects cancel in
 TGK x-space; see the polish comment).  LAPACK's dstein handles clusters
-with O(n^2)-depth sequential MGS groups, a shape TPUs hate.
+with O(n^2)-depth sequential MGS groups, a shape wide devices hate.
 
 :func:`svd_two_stage` runs the flagship two-stage pipeline with full
 back-transformation of the Stage-I compact-WY factors and the recorded
@@ -40,7 +40,7 @@ from jax import lax
 from svdsolver_tpu.ops.householder import householder_vector
 from svdsolver_tpu.ops.precision import pdot
 from svdsolver_tpu.ops.chase_schedule import nc_of_static, s_max_of
-from svdsolver_tpu.models.diagonalize import bisect_svdvals
+from svdsolver_tpu.ops import dispatch
 
 
 def _larft_closed_form(V, taus):
@@ -148,15 +148,14 @@ def _cluster_orthogonalize(x, sig, ctol, passes=2):
     close singular values in TGK space.
 
     The dense formulation (:func:`_cluster_orthogonalize_dense`) pays a
-    full (n, n) Gram + DENSE cholesky + DENSE triangular solve per pass —
-    ~27 ms per call at n=3840, the dominant cost of ``tgk_vectors`` —
+    full (n, n) Gram + DENSE cholesky + DENSE triangular solve per pass,
     while the masked Gram is block-diagonal with NARROW blocks (close-
     sigma clusters).  Here the columns are tiled at width 128 under TWO
     covers (offsets 0 and 64): any cluster of width <= 64 lies wholly
     inside some tile of at least one cover (a span of < 64 columns cannot
     contain both a multiple of 128 and one of 128m - 64), so each pass is
     a BATCHED (ntiles, 128, 128) masked Gram + cholesky + triangular
-    solve — MXU-shaped small-batch ops in place of sequential dense
+    solve — GEMM-shaped small-batch ops in place of sequential dense
     factorizations.  The two covers correct DISJOINT column sets, so both
     corrections derive from the same input x and commute.  Clusters wider
     than 64 columns fall back to the dense path (lax.cond — compiled
@@ -243,7 +242,7 @@ def _cluster_orthogonalize(x, sig, ctol, passes=2):
 
 def _cluster_orthogonalize_dense(x, sig, ctol, passes=2):
     """Orthonormalize within clusters of close singular values, in TGK space,
-    by cluster-blocked CholeskyQR — width-unlimited and MXU-shaped.
+    by cluster-blocked CholeskyQR — width-unlimited and GEMM-shaped.
 
     ``x``: (2n, n) TGK eigenvector columns for the shifts ``sig`` (sorted,
     so clusters are contiguous).  Orthogonality of TGK eigenvectors implies
@@ -255,7 +254,7 @@ def _cluster_orthogonalize_dense(x, sig, ctol, passes=2):
     Method: the cluster-masked Gram ``Gc = I + M o (X^T X - I)`` (M the
     block mask ``rid_i == rid_j``) is block-diagonal SPD, so ``X L^{-T}``
     with ``L = chol(Gc)`` orthonormalizes every cluster at once while
-    leaving singleton columns untouched — three MXU/blocked ops (GEMM,
+    leaving singleton columns untouched — three blocked ops (GEMM,
     cholesky, triangular solve) regardless of cluster width, where
     positional MGS would need one pass per member.  Two passes
     (CholeskyQR2) reach machine orthogonality for block condition numbers
@@ -308,11 +307,11 @@ def tgk_solve_xla(z, lam, rhs, pivmin, big):
     ``z``: (N-1,) TGK off-diagonals, ``lam``: (n,) per-lane shifts,
     ``rhs``: (N, n).  Both substitution passes are ``lax.scan``s emitting
     factor/solution rows as scan outputs — scatter-updating (N, n) carries
-    per step is both slower and the shape that miscompiles on the TPU
-    backend (see two_stage.band_to_bidiagonal_accum).  The forward carry's
-    third slot (``dd``) of the generic band-2 elimination is identically
-    zero for a tridiagonal (only ``p2 = swap ? c_i : 0`` survives), but is
-    kept for clarity; the Pallas twin (ops/pallas/tridiag_solve.py) drops it.
+    per step is slower.  The forward carry's third slot (``dd``) of the
+    generic band-2 elimination is identically zero for a tridiagonal (only
+    ``p2 = swap ? c_i : 0`` survives), but is kept for clarity; the GPU
+    kernel (ops/pallas/tgk_solve_triton.py) drops it.  This is what
+    ``ops.dispatch.tgk_solve`` runs off CUDA, and the kernel's oracle.
     """
     n = lam.shape[0]
     dtype = rhs.dtype
@@ -419,18 +418,8 @@ def tgk_vectors(d, e, sig, iters=None, polish=None):
     def solve(rhs):
         """(TGK - diag-per-lane(lam)) x = rhs; lanes vectorized.
 
-        Routed to the single-launch Pallas kernel on TPU fp32 (per-row cost
-        is XLA scan-iteration overhead otherwise); XLA scan path elsewhere.
         ``lam`` is read at call time (after the multiplet perturbation)."""
-        from svdsolver_tpu.models.svd import use_pallas
-
-        if use_pallas(dtype) and n % 128 == 0 and n >= 512:
-            from svdsolver_tpu.ops.pallas.tridiag_solve import (
-                tgk_solve_pallas,
-            )
-
-            return tgk_solve_pallas(z, lam, rhs, pivmin, big)
-        return tgk_solve_xla(z, lam, rhs, pivmin, big)
+        return dispatch.tgk_solve(z, lam, rhs, pivmin, big)
 
     x = jax.random.normal(jax.random.PRNGKey(0), (N, k), dtype)
 
@@ -485,8 +474,8 @@ def tgk_vectors(d, e, sig, iters=None, polish=None):
         # parallel.  There the u/v coupling is vacuous (B^T u = sigma v ~ 0),
         # so orthogonalize the u-parts directly within the cluster — but
         # LAZILY: on generic spectra no cluster is near-zero, and the u-side
-        # CholeskyQR2 (dense Gram + chol + triangular solve) was measured as
-        # ~1/3 of tgk_vectors at n=3840 while its result was discarded.
+        # CholeskyQR2 (dense Gram + chol + triangular solve) would cost a
+        # dense factorization whose result is discarded.
         need_un = jnp.any(jnp.logical_and(in_cluster, ~usable))
 
         def _un(u):
@@ -527,7 +516,7 @@ def tgk_vectors(d, e, sig, iters=None, polish=None):
     # nearest orthonormal basis (quadratically for ||X^T X - I|| < 1, which
     # per-lane inverse iteration + the cluster coupling guarantee).  Dense
     # random spectra leave ~eps*smax/gap ~ 1e-3..1e-2 pairwise cross-talk in
-    # fp32 that no per-lane method can avoid; a few GEMM pairs on the MXU
+    # fp32 that no per-lane method can avoid; a few GEMM pairs
     # restore ~1e-6 orthogonality while perturbing each column only by its
     # existing cross-talk (so eigen-residuals are preserved to first order).
     # The u- and v-parts are polished SEPARATELY: close-but-not-clustered
@@ -564,14 +553,7 @@ def bidiagonal_svd(d, e, k=None):
     ``k``: if given, vectors (and the returned sig) cover only the top-``k``
     singular values; bisection still resolves the full spectrum (its cost is
     independent of how many vectors are wanted)."""
-    from svdsolver_tpu.models.svd import use_pallas
-
-    if use_pallas(d.dtype):
-        from svdsolver_tpu.ops.pallas.bisect import bisect_svdvals_pallas
-
-        sig = bisect_svdvals_pallas(d, e)
-    else:
-        sig = bisect_svdvals(d, e)
+    sig = dispatch.bisect_svdvals(d, e)
     if k is not None:
         sig = sig[: min(int(k), sig.shape[0])]
     U_b, V_b = tgk_vectors(d, e, sig)
@@ -625,7 +607,7 @@ def _apply_chase_reflectors(V, T, M, band, reverse):
 def _apply_chase_reflectors_wy(V, T, M, band):
     """Grouped compact-WY form of :func:`_apply_chase_reflectors`
     (reverse=True, i.e. the creation-order product ``L @ M``), with the
-    per-reflector rank-1 updates aggregated into MXU GEMMs.
+    per-reflector rank-1 updates aggregated into GEMMs.
 
     Validity of the regrouping: reflector (i, s) supports rows
     ``[i+1+s*b, i+1+(s+1)*b)``, so two reflectors overlap iff
@@ -691,9 +673,8 @@ def _apply_chase_reflectors_wy(V, T, M, band):
 @functools.partial(jax.jit, static_argnames=("band",))
 def _apply_chase_reflectors_wy_carry(V, T, M, band):
     """Overlap-carry form of :func:`_apply_chase_reflectors_wy`: the same
-    (group g desc, slot s asc) compact-WY walk, with two measured-cost
-    reductions (round-4 microbench, n=3840, b=128, HIGHEST precision —
-    the walk splits ~50/50 between HBM traffic and small-GEMM passes):
+    (group g desc, slot s asc) compact-WY walk, with two cost reductions
+    (the walk is a mix of memory traffic and small-GEMM passes):
 
     * **Overlap carry.**  Slot s's segment rows ``[r(s), r(s)+2b)`` and
       slot s+1's ``[r(s)+b, r(s)+3b)`` share b rows, so the within-group
@@ -710,15 +691,7 @@ def _apply_chase_reflectors_wy_carry(V, T, M, band):
     ~540 of the 930 (g, s) steps at n=3840/b=128 carry any content.  The
     group loop unrolls in Python (static g: static V/VT slices, static row
     bases); per-step V/VT blocks stream in as ``lax.scan`` xs (no per-step
-    dynamic gathers from the (ng, s_max, ...) block arrays — a measured
-    ~30% cost of the fori/index form).
-
-    Measured (pair form, n=3840, b=128): 122 -> 74 ms.  A wave-batched
-    re-schedule of the same walk (batching the ~s_max/2 independent (g, s)
-    steps of an anti-diagonal into one GEMM) measured SLOWER (252 vs
-    122 ms): the walk is traffic- and MXU-pass-bound, not dispatch-bound,
-    so batching buys nothing and the gather/scatter of strided member
-    windows adds copies.
+    dynamic gathers from the (ng, s_max, ...) block arrays).
     """
     n_sweeps, s_max, b = V.shape
     ncols = M.shape[1]
@@ -844,7 +817,7 @@ def svd_two_stage(A, band=None, k=None):
     The reference's two-stage *documents* U1/V1 outputs it never produces
     (svd_parallel.h:400-407); this delivers them.
     """
-    from svdsolver_tpu.models.svd import _auto_block, use_pallas
+    from svdsolver_tpu.models.svd import _auto_block
     from svdsolver_tpu.models.two_stage import (
         dense_to_band_rec,
         band_to_bidiagonal_accum,
@@ -859,44 +832,9 @@ def svd_two_stage(A, band=None, k=None):
     pad = (-n) % b
     if pad:
         A = jnp.pad(A, ((0, pad), (0, pad)))
-    if use_pallas(A.dtype) and b % 8 == 0:
-        from svdsolver_tpu.ops.pallas.panel_qr import dense_to_band_rec_pallas
-
-        Ab, Vq, Tq, Vl, Tl = dense_to_band_rec_pallas(A, band=b)
-    else:
-        Ab, Vq, Tq, Vl, Tl = dense_to_band_rec(A, band=b)
-    if use_pallas(A.dtype) and b % 8 == 0:
-        # single-launch device-resident chase with record accumulation
-        from svdsolver_tpu.ops.pallas.band_chase import (
-            band_to_bidiagonal_pallas_accum,
-        )
-        from svdsolver_tpu.ops.pallas.band_chase_wave import (
-            band_to_bidiagonal_pallas_wave_accum,
-            wave_chase_accum_preferred,
-        )
-        from svdsolver_tpu.ops.pallas.band_chase_stream import (
-            band_to_bidiagonal_pallas_stream_accum,
-            stream_chase_accum_preferred,
-        )
-
-        if wave_chase_accum_preferred(Ab.shape[0], b):
-            # past the HBM row-stride cliff: VMEM-resident recording chase
-            d, e, VL, TL, VR, TR = band_to_bidiagonal_pallas_wave_accum(
-                Ab, band=b
-            )
-        elif stream_chase_accum_preferred(Ab.shape[0], b):
-            # past the wave kernel's VMEM residency: streamed recording
-            # wavefront (windows through HBM, resident tail)
-            d, e, VL, TL, VR, TR = band_to_bidiagonal_pallas_stream_accum(
-                Ab, band=b
-            )
-        else:
-            d, e, VL, TL, VR, TR = band_to_bidiagonal_pallas_accum(
-                Ab, band=b
-            )
-    else:
-        d, e, VL, TL, VR, TR = band_to_bidiagonal_accum(Ab, band=b)
-    # trim record slots the schedule never fills (Pallas pads s_max to 8)
+    Ab, Vq, Tq, Vl, Tl = dense_to_band_rec(A, band=b)
+    d, e, VL, TL, VR, TR = band_to_bidiagonal_accum(Ab, band=b)
+    # trim record slots the schedule never fills
     np_ = Ab.shape[0]
     s_used = s_max_of(np_, b)
     if s_used < VL.shape[1]:
@@ -931,7 +869,7 @@ def svd(A, panel=32, method="tpu2", band=None):
     """
     import numpy as _np
 
-    if _np.iscomplexobj(A):  # host numpy complex; no complex dtype on TPU
+    if _np.iscomplexobj(A):  # host numpy complex: split (re, im) pipeline
         if method != "tpu2":
             raise ValueError(
                 f"complex input supports only the default pipeline "
@@ -994,9 +932,8 @@ def svd_batch(As, block=None):
     (B, n, n) -> (U (B, n, n), s (B, n) descending, Vh (B, n, n)).
 
     Single-device batched execution of the two-stage pipeline under
-    ``jax.vmap`` — the XLA (non-Pallas) kernel set, whose per-op dispatch
-    cost is amortized across the batch; the Pallas kernels are
-    single-instance and stay on the unbatched :func:`svd` path.  Batched
+    ``jax.vmap``, whose per-op dispatch cost is amortized across the batch
+    (the Triton kernels batch as an extra grid axis).  Batched
     counterpart of :func:`svdsolver_tpu.models.svd.svdvals_batch`; for
     multi-chip sharded batches see ``parallel.distributed``.
     """
@@ -1022,7 +959,7 @@ def svd_batch(As, block=None):
         if s_used < VL.shape[1]:
             VL, TL = VL[:, :s_used], TL[:, :s_used]
             VR, TR = VR[:, :s_used], TR[:, :s_used]
-        sig = bisect_svdvals(d, e)
+        sig = dispatch.bisect_svdvals(d, e)
         U_b, V_b = tgk_vectors(d, e, sig)
         LU = _apply_chase_reflectors_wy(VL, TL, U_b, b)
         RV = _apply_chase_reflectors_wy(VR, TR, V_b, b)

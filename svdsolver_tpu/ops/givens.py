@@ -1,4 +1,4 @@
-"""Stable Givens rotation parameters, branchless for TPU.
+"""Stable Givens rotation parameters, branchless.
 
 Mirrors the reference's three-branch ``rotate()`` (svd_serial.h:277-297) but
 computed with ``jnp.where`` selects instead of data-dependent branches so it

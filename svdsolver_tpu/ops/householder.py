@@ -1,13 +1,13 @@
 """Householder reflector primitives.
 
-TPU-first design notes
-----------------------
+Design notes
+------------
 The reference builds a *materialized* (m-j)x(m-j) matrix ``H = I - tau w w'``
 for every column and multiplies it into the trailing matrix
 (reference: svd_serial.h:189-216, the `transform` member) — an O(n^4) total.
 Here a reflector is only ever the pair ``(v, tau)`` and is applied as a rank-1
 update ``A - tau * v (v'A)``; blocked algorithms aggregate reflectors with
-compact-WY (see ops/wy.py) so the FLOPs land in large GEMMs on the MXU.
+compact-WY (see ops/wy.py) so the FLOPs land in large GEMMs.
 
 Because XLA requires static shapes, reflectors are computed over *full-length*
 vectors with an index mask selecting the active part: ``v`` is zero at indices

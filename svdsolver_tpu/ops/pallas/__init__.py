@@ -1,1 +1,1 @@
-"""Pallas TPU kernels for the hot sequential paths."""
+"""Pallas kernels for the GPU, all on the Triton route (``backend="triton"``)."""

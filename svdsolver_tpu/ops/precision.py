@@ -1,42 +1,23 @@
 """Matmul precision control.
 
-On TPU, fp32 ``jnp.dot`` defaults to bf16 MXU passes (~1e-3 relative error) —
-unacceptable for orthogonal reductions, whose error must stay near machine
-epsilon.  All contractions in the solver go through :func:`pdot`, which
-defaults to ``Precision.HIGHEST`` (bf16x6 / fp32-accurate on the MXU).
-Callers chasing raw throughput can lower it globally with
-:func:`set_dot_precision` ('default' | 'float32' | 'highest').
+A float32 contraction at XLA's default precision may run in TF32 on the
+GPU's tensor cores (about three decimal digits) — unacceptable for
+orthogonal reductions, whose error must stay near machine epsilon.  All
+contractions in the solver go through :func:`pdot`, which asks for
+``Precision.HIGHEST`` (true float32 or float64 arithmetic).
 """
 
 import jax.numpy as jnp
 from jax import lax
 
-_PRECISION = "highest"
-
-_MAP = {
-    "default": lax.Precision.DEFAULT,
-    "float32": lax.Precision.HIGH,
-    "highest": lax.Precision.HIGHEST,
-}
-
-
-def set_dot_precision(name):
-    """Set the global contraction precision: 'default' | 'float32' | 'highest'."""
-    global _PRECISION
-    if name not in _MAP:
-        raise ValueError(f"unknown precision {name!r}; one of {sorted(_MAP)}")
-    _PRECISION = name
-
-
-def get_dot_precision():
-    return _PRECISION
+_PRECISION = lax.Precision.HIGHEST
 
 
 def get_lax_precision():
-    """The current global precision as a ``lax.Precision`` (for einsum etc.)."""
-    return _MAP[_PRECISION]
+    """The contraction precision as a ``lax.Precision`` (for einsum etc.)."""
+    return _PRECISION
 
 
 def pdot(a, b):
     """Precision-controlled matmul/vecdot used for every contraction."""
-    return jnp.matmul(a, b, precision=_MAP[_PRECISION])
+    return jnp.matmul(a, b, precision=_PRECISION)

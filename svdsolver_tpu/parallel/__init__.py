@@ -1,10 +1,10 @@
-"""Multi-chip execution: device meshes, sharded batch SVD, distributed Stage I.
+"""Multi-device execution: device meshes, sharded batch SVD, distributed Stage I.
 
-The reference's parallelism is single-node (OpenMP threads + one GPU); its
-TPU-native equivalent on one chip is XLA/Pallas itself.  This package is the
-*scale-out* layer the reference lacks: ``jax.sharding.Mesh`` + ``pjit``
-shardings so batches of problems run data-parallel across chips and the
-trailing-matrix GEMMs of Stage I shard across the ICI.
+The reference's parallelism is single-node (OpenMP threads + one GPU).
+This package is the *scale-out* layer the reference lacks:
+``jax.sharding.Mesh`` + ``pjit`` shardings so batches of problems run
+data-parallel across devices and the trailing-matrix GEMMs of Stage I shard
+across the device interconnect.
 """
 
 from svdsolver_tpu.parallel.mesh import make_mesh

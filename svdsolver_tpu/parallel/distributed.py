@@ -1,17 +1,18 @@
-"""Sharded multi-chip SVD execution.
+"""Sharded multi-device SVD execution.
 
 Design (scaling-book style): pick a mesh, annotate shardings, let XLA insert
 the collectives.  Two axes:
 
 * ``dp`` (data parallel): independent problem instances — a batch of matrices
   sharded on the leading axis; zero communication.
-* ``tp`` (tensor parallel): rows of each matrix sharded across chips, so the
-  Stage-I trailing-update GEMMs (``V^T A`` then ``A - V T^T W``) partition
-  over the ICI with an all-reduce per panel — the same math as the
-  single-chip path, compiled once under ``jit`` with sharding constraints.
+* ``tp`` (tensor parallel): rows of each matrix sharded across devices, so
+  the Stage-I trailing-update GEMMs (``V^T A`` then ``A - V T^T W``)
+  partition over the interconnect with an all-reduce per panel — the same
+  math as the single-device path, compiled once under ``jit`` with
+  sharding constraints.
 
 The reference has no distributed layer (single process + one GPU); this is
-the capability the TPU build adds on top of parity.
+a capability this package adds on top of parity.
 """
 
 import functools
@@ -29,7 +30,7 @@ from svdsolver_tpu.models.two_stage import (
     band_to_bidiagonal,
     make_window_pairs,
 )
-from svdsolver_tpu.models.diagonalize import bisect_svdvals
+from svdsolver_tpu.ops import dispatch
 
 
 def dense_to_band_sharded(A, mesh, band=32):
@@ -52,7 +53,7 @@ def _svdvals_batch(As, mesh, band):
         d, e = band_to_bidiagonal(Ab, band=band)
         # bisection: fixed iteration count -> no cross-batch while_loop
         # convergence coupling under vmap, and fully vectorized on-device
-        return bisect_svdvals(d, e)[:n]
+        return dispatch.bisect_svdvals(d, e)[:n]
 
     return jax.vmap(one)(As)
 
@@ -75,7 +76,7 @@ def svdvals_batch_sharded(As, mesh, band=32):
 
     ``As``: (batch, n, n); the batch axis shards over ``dp`` (zero
     communication) and each matrix's columns over ``tp``.  Stage I runs with
-    hand-placed collectives (psum/all_gather riding the ICI — see
+    hand-placed collectives (psum/all_gather over the interconnect — see
     :func:`dense_to_band_shardmap`); the small band matrices are then
     all-gathered once and Stage II + bisection run replicated per dp-group.
     """
@@ -98,7 +99,7 @@ def svdvals_batch_sharded(As, mesh, band=32):
         )(A_loc)
         Ab = jax.lax.all_gather(Ab_loc, "tp", axis=2, tiled=True)
         d, e = jax.vmap(lambda M: band_to_bidiagonal(M, band=b))(Ab)
-        return jax.vmap(bisect_svdvals)(d, e)[:, :n]
+        return jax.vmap(dispatch.bisect_svdvals)(d, e)[:, :n]
 
     fn = shard_map(
         body,
@@ -126,7 +127,7 @@ def dense_to_band_shardmap(A, mesh, band=32):
       ``psum`` for ``A V`` (a row-sharded x column-sharded contraction),
       then applies locally.
 
-    Three (n x b)-sized collectives per panel step, all riding ICI — the
+    Three (n x b)-sized collectives per panel step — the
     hand-placed version of what GSPMD inserts for the jit path.  Exactly
     the panel-sweep schedule of models/two_stage.dense_to_band.
     """
@@ -145,7 +146,7 @@ def dense_to_band_shardmap(A, mesh, band=32):
         out_specs=P(None, "tp"),
         check_vma=False,
     )
-    return fn(A)
+    return fn(jax.device_put(A, NamedSharding(mesh, P(None, "tp"))))
 
 
 def _stage1_local(A_loc, *, n, b, n_loc, uv=False):
@@ -257,8 +258,8 @@ def band_to_bidiagonal_pipelined(A, mesh, band=32, sweeps_per_group=None):
     the reflector order/signs.
 
     The reference's chase (brd_p2, svd_parallel.h:639) is strictly
-    sequential; the single-chip TPU kernels pipeline sweeps 3 chase-slots
-    apart (the wavefront disjointness proof, models/two_stage.py:366).  This
+    sequential; the single-device wavefront schedule pipelines sweeps 3
+    chase-slots apart (models/two_stage.band_to_bidiagonal_wavefront).  This
     is the *multi-chip* form of that schedule — the ELPA-style distributed
     chase, built from three invariants:
 
@@ -276,7 +277,7 @@ def band_to_bidiagonal_pipelined(A, mesh, band=32, sweeps_per_group=None):
       superstep ``2g + d``, so adjacent devices are never active together
       and every boundary block ``[d*m - U, d*m + ww)`` has a unique writer
       per superstep.  After each superstep the two boundary blocks move by
-      nearest-neighbor ``ppermute`` (one up + one down, riding ICI), which
+      nearest-neighbor ``ppermute`` (one up + one down), which
       restores the invariant that all replicas of a row agree.
 
     Pipeline efficiency approaches ``P/2`` (P devices, ``2*ceil((n-1)/LG)
@@ -445,7 +446,7 @@ def svdvals_sharded(A, mesh, band=32, stage2="local"):
     part), then the small band matrix is replicated (one all-gather of
     n*(band+1) values) and Stage II + bisection run locally — the band and
     bidiagonal stages are memory-latency-bound and tiny, so sharding them
-    would only add ICI latency at the sizes one chip's HBM can hold.
+    would only add interconnect latency at the sizes one device can hold.
 
     ``stage2="pipelined"`` instead runs the chase row-sharded across the
     mesh (:func:`band_to_bidiagonal_pipelined`) — the fully-distributed
@@ -460,7 +461,7 @@ def svdvals_sharded(A, mesh, band=32, stage2="local"):
     else:
         Ab = jax.device_put(Ab, NamedSharding(mesh, P()))  # replicate band
         d, e = band_to_bidiagonal(Ab, band=band)
-    return bisect_svdvals(d, e)[:n]
+    return dispatch.bisect_svdvals(d, e)[:n]
 
 
 def svd_sharded(A, mesh, band=32):
@@ -482,7 +483,7 @@ def svd_sharded(A, mesh, band=32):
 
     The reference has no distributed layer and no singular vectors from its
     two-stage path (svd_parallel.h:400-407 promises U1/V1 it never
-    delivers); this is the capability the TPU build adds on top of parity.
+    delivers); this is a capability this package adds on top of parity.
     """
     from jax import shard_map
     from svdsolver_tpu.models.two_stage import band_to_bidiagonal_accum
@@ -514,14 +515,7 @@ def svd_sharded(A, mesh, band=32):
     if s_used < VL.shape[1]:
         VL, TL = VL[:, :s_used], TL[:, :s_used]
         VR, TR = VR[:, :s_used], TR[:, :s_used]
-    # route the bisection by the MESH platform (use_pallas checks the
-    # default backend, which stays TPU even for a virtual CPU mesh)
-    if next(iter(mesh.devices.flat)).platform == "tpu":
-        from svdsolver_tpu.ops.pallas.bisect import bisect_svdvals_pallas
-
-        s = bisect_svdvals_pallas(d, e)
-    else:
-        s = bisect_svdvals(d, e)
+    s = dispatch.bisect_svdvals(d, e)
     U_b, V_b = tgk_vectors(d, e, s)
 
     def back(U1_loc, V1_loc, Ub_loc, Vb_loc, VL, TL, VR, TR):

@@ -1,4 +1,4 @@
-"""Multi-chip one-sided block-Jacobi SVD: a systolic tournament over ICI.
+"""Multi-device one-sided block-Jacobi SVD: a systolic tournament.
 
 The single-chip block Jacobi (models/jacobi.py) pairs ``nb`` column blocks
 round-robin; every round's work is embarrassingly parallel across pairs.
@@ -7,7 +7,7 @@ Brent-Luk way: each device owns TWO column blocks (its current pair), each
 round does one local pair step — a (2b, 2b) Gram, an accumulated-rotation
 local solve, and two (n, 2b) x (2b, 2b) GEMMs — and then the tournament
 re-pairing becomes a **neighbor-only block exchange** (one ``ppermute`` up,
-one down), the systolic pattern the ICI torus is built for.  Per round each
+one down).  Per round each
 device moves 2 blocks of n*b floats to neighbors; convergence is a ``pmax``
 of the per-pair relative coupling.
 

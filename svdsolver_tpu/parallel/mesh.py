@@ -12,33 +12,21 @@ def make_mesh(n_devices=None, dp=None, axis_names=("dp", "tp"), platform=None):
     ``dp`` defaults to the largest power-of-two divisor <= sqrt(n_devices)
     so both axes get devices; pass ``dp=1`` for pure tensor parallelism or
     ``dp=n_devices`` for pure data parallelism.  ``platform`` selects the
-    backend (e.g. ``"cpu"`` for the virtual 8-device host mesh used in tests
-    when only one real chip is attached).
+    backend (e.g. ``"cpu"`` for the virtual host mesh of the tests).  Too
+    few devices of that platform is an error: a mesh is never quietly
+    built from another platform's devices.  The mesh follows the
+    algorithm's axes, not a physical topology.
     """
     devices = jax.devices(platform) if platform else jax.devices()
     if n_devices is None:
         n_devices = len(devices)
     if len(devices) < n_devices:
-        # Fall back to the virtual host mesh (xla_force_host_platform_device
-        # _count) so multi-chip sharding is exercised without N real chips.
-        cpu = jax.devices("cpu")
-        if len(cpu) >= n_devices:
-            import warnings
-
-            warnings.warn(
-                f"make_mesh: only {len(devices)} accelerator device(s) "
-                f"available; substituting {n_devices} virtual host-CPU "
-                "devices — results are functional, not performance-"
-                "representative",
-                stacklevel=2,
-            )
-            devices = cpu
-    devices = devices[:n_devices]
-    if len(devices) < n_devices:
         raise ValueError(
-            f"need {n_devices} devices, have {len(devices)} "
-            "(set --xla_force_host_platform_device_count for a virtual mesh)"
+            f"need {n_devices} {devices[0].platform} devices, have "
+            f"{len(devices)} (a virtual CPU mesh needs platform='cpu' and "
+            "--xla_force_host_platform_device_count)"
         )
+    devices = devices[:n_devices]
     if dp is None:
         dp = 1
         while dp * 2 * dp * 2 <= n_devices and n_devices % (dp * 2) == 0:

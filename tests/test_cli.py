@@ -2,6 +2,7 @@
 
 import os
 
+import jax
 import pytest
 
 from svdsolver_tpu.cli import main
@@ -85,12 +86,16 @@ def test_check_double_dtype():
     assert rc == 0
 
 
-def test_check_64_flagship_tpu2():
-    # the correctness gate must exercise the flagship Pallas pipeline
+def test_check_64_flagship_tpu2(capsys):
+    # the correctness gate runs the flagship svdvals pipeline on whatever
+    # backend is present — never a skip
     if not os.path.exists(os.path.join(REPO_DATA, "test_float_64_64.bin")):
         pytest.skip("fixtures not present")
     rc = main(["check", "64", "--model", "tpu2"])
+    out = capsys.readouterr().out
     assert rc == 0
+    assert "CHECK PASSED" in out and "SKIPPED" not in out
+    assert f"on {jax.devices()[0].platform}" in out
 
 
 def test_svd_subcommand(tmp_path):

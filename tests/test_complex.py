@@ -1,4 +1,4 @@
-"""Complex SVD (split re/im representation — no complex dtype on this TPU)."""
+"""Complex SVD (split re/im representation)."""
 
 import numpy as np
 import jax.numpy as jnp

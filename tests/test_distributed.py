@@ -47,9 +47,8 @@ def test_shardmap_stage1_matches_single_device(rng):
 
 def test_dryrun_entrypoint():
     # dryrun_multichip pins the WHOLE process to the virtual CPU platform
-    # (clear_backends + jax_platforms=cpu) — exactly what the driver's
-    # standalone gate needs, but fatal to every later Pallas/TPU test in
-    # this process.  Run it the way the driver does: in its own process.
+    # (clear_backends + jax_platforms=cpu), which would leak into every
+    # later test in this process.  Run it in its own process.
     import os
     import subprocess
     import sys

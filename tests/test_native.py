@@ -6,19 +6,19 @@ C++ library and the JAX models must agree with each other and with LAPACK.
 """
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 
-native = pytest.importorskip("svdsolver_tpu.utils.native")
+from svdsolver_tpu.utils import native
 
-try:
-    native.get_lib()
-    HAVE_LIB = True
-except Exception:  # toolchain unavailable
-    HAVE_LIB = False
 
-pytestmark = pytest.mark.skipif(not HAVE_LIB, reason="native toolchain unavailable")
+@pytest.fixture(autouse=True, scope="module")
+def _native_lib():
+    """Build (or load) the native library; skip where no toolchain exists."""
+    try:
+        native.get_lib()
+    except Exception as exc:  # toolchain unavailable
+        pytest.skip(f"native toolchain unavailable: {exc}")
 
 
 def test_native_gk_matches_jax(rng):

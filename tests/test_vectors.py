@@ -115,8 +115,8 @@ def test_two_stage_svd_wide_cluster(rng):
 
 
 def test_two_stage_svd_large_dense_spectrum(rng):
-    # Regression for two scale-only failures: (a) chase-record corruption on
-    # TPU when the accumulating chase carried the full record arrays through
+    # Regression for two scale-only failures: (a) chase-record corruption
+    # when the accumulating chase carried the full record arrays through
     # nested loops (garbage reflectors at n >= 512), and (b) inverse-iteration
     # NaN from fp32 back-substitution overflow on dense random spectra.
     # A random Gaussian matrix has ~1e2..1e3*eps relative gaps throughout its
@@ -134,12 +134,10 @@ def test_two_stage_svd_large_dense_spectrum(rng):
 
 
 def test_full_svd_at_scale(rng):
-    # Regression for a scoped-VMEM OOM: tgk_solve_pallas pipelined
-    # (128, 8, n_pad/8) blocks whose double-buffered footprint crossed the
-    # 16 MB budget for n >= ~3900, so svd() failed OUTRIGHT at scale while
-    # every smaller-n test passed.  Lanes now stream in LC-wide grid
-    # chunks; n=4096 sits past the old threshold.  Checks reconstruction
-    # and orthogonality, not just completion.
+    # svd() at a size where earlier failures appeared only at scale (an
+    # on-chip memory budget crossed near n ~ 3900 while every smaller-n test
+    # passed).  Checks reconstruction and orthogonality, not just
+    # completion.
     n = 4096
     A = jnp.asarray(rng.normal(size=(n, n)).astype(np.float32))
     U, s, Vh = svd(A)
